@@ -1,16 +1,16 @@
-"""On-chip gradient-path benchmark: 1M-ray record -> replay -> grad.
+"""Gradient-path benchmark: 1M-ray record -> replay -> grad.
 
-VERDICT r1 #4 / r2 #4c: prove the production-scale differentiable path on
-real hardware. Three timed stages, all jitted and measured warm:
+The production-scale differentiable path on the device. Three timed
+stages, all jitted and measured warm:
 
-  record   record_paths_pallas at N rays (fused kernel, 1-bounce rounds)
+  record   record_paths at N rays (XLA nearest-hit search per bounce)
   replay   render_ir_replay forward from the recorded topology
   grad     d(MSE(replayed IR, target))/d(material absorption logits)
 
 plus a correctness gate: the replay gradient at a smaller ray count matches
 the direct XLA autodiff gradient (same directions, same scene) to rtol 1e-3
-— run on the SAME device, so this is on-chip end-to-end evidence, not a CPU
-re-test. (Reference analog: the CUDA tracer has no gradient path at all;
+— run on the SAME device, so this is end-to-end evidence on the device, not
+a CPU re-test. (Reference analog: the CUDA tracer has no gradient path at all;
 devicePrograms.cu:192-254 is forward-only.)
 
 Usage: python benchmarks/grad_bench.py [n_rays] [bounces]
@@ -25,16 +25,16 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-import audiorenderingv2_tpu  # noqa: F401  (persistent compile cache)
+import audiorenderingv2  # noqa: F401  (persistent compile cache)
 import jax
 import jax.numpy as jnp
 
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import testing
-from audiorenderingv2_tpu.core import sampling
-from audiorenderingv2_tpu.core.tracer import trace_ir
-from audiorenderingv2_tpu.diff import replay
-from audiorenderingv2_tpu.diff.inverse import with_material_absorption
+import audiorenderingv2 as ar
+from audiorenderingv2 import testing
+from audiorenderingv2.core import sampling
+from audiorenderingv2.core.tracer import trace_ir
+from audiorenderingv2.diff import replay
+from audiorenderingv2.diff.inverse import with_material_absorption
 
 
 def timeit(fn, *args, n=5):
@@ -64,16 +64,14 @@ def main():
     params = ar.TraceParams(sample_rate=16000, ir_length=32000,
                             base_power=3.62, max_bounces=bounces,
                             energy_threshold=0.0)
-    popts = ar.TracerOptions(backend="pallas", pallas_version=2,
-                             pallas_interpret=(
-                                 jax.devices()[0].platform == "cpu"))
+    ropts = ar.TracerOptions()
     emitter = jnp.zeros(3, jnp.float32)
     rec = jnp.array([2.0, 0.0, 1.0], jnp.float32)
     dirs = sampling.sample_directions(jax.random.PRNGKey(0), n_rays)
 
     # --- record ---
-    rec_fn = jax.jit(lambda d: replay.record_paths_pallas(
-        sc, d, emitter, rec, 0.0, params, popts))
+    rec_fn = jax.jit(lambda d: replay.record_paths(
+        sc, d, emitter, rec, 0.0, params, ropts))
     ms, cs = timeit(rec_fn, dirs)
     out["record_ms"], out["record_compile_s"] = round(ms, 1), round(cs, 1)
     print(f"record: {ms:.1f} ms (compile+first {cs:.1f}s)", flush=True)
@@ -115,8 +113,8 @@ def main():
     d_small = sampling.sample_directions(jax.random.PRNGKey(1), n_small)
     xopts = ar.TracerOptions(block_size=16384, tri_chunk=128,
                              early_exit=False)
-    ids_s, recv_s = jax.jit(lambda d: replay.record_paths_pallas(
-        sc, d, emitter, rec, 0.0, p_small, popts))(d_small)
+    ids_s, recv_s = jax.jit(lambda d: replay.record_paths(
+        sc, d, emitter, rec, 0.0, p_small, ropts))(d_small)
 
     def loss_xla(lg):
         sc_t = with_material_absorption(sc, mat_ids, jax.nn.sigmoid(lg))

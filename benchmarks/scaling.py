@@ -1,10 +1,10 @@
 """1 -> N device scaling curve for the sharded renderer.
 
 Runs the shard_map ray-parallel render on meshes of 1, 2, 4, ... devices
-and reports throughput + parallel efficiency. On a real pod slice this
-measures ICI scaling; on a single-host CPU run (AR2_FORCE_CPU_MESH=8) it
+and reports throughput + parallel efficiency. On GPUs this measures
+scaling over NVLink/NCCL; on a single-host CPU run (AR2_FORCE_CPU_MESH=8) it
 validates the code path and the collective structure, with efficiency
-numbers that reflect host-core contention rather than ICI.
+numbers that reflect host-core contention rather than the interconnect.
 
 Usage:
   python benchmarks/scaling.py                  # real devices
@@ -30,23 +30,22 @@ else:
 
 import numpy as np
 
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import testing
-from audiorenderingv2_tpu.parallel import make_ray_mesh, render_ir_sharded
+import audiorenderingv2 as ar
+from audiorenderingv2 import testing
+from audiorenderingv2.parallel import make_ray_mesh, render_ir_sharded
 
 
 def main():
     devices = jax.devices()
-    on_tpu = devices[0].platform == "tpu"
+    on_cpu = devices[0].platform == "cpu"
     v, t = testing.box_room((14.0, 9.0, 11.0))
     scene = testing.scene_from_arrays(v, t, 0.3)
     sc = ar.scene_to_arrays(scene, 128)
     params = ar.TraceParams(sample_rate=16000, ir_length=32000,
                             base_power=3.62,
-                            max_bounces=50 if on_tpu else 8)
-    opts = ar.TracerOptions(backend="pallas" if on_tpu else "xla",
-                            block_size=4096, tri_chunk=128)
-    rays_per_device = 1_000_000 if on_tpu else 8192
+                            max_bounces=8 if on_cpu else 50)
+    opts = ar.TracerOptions(block_size=4096, tri_chunk=128)
+    rays_per_device = 8192 if on_cpu else 1_000_000
 
     results = []
     n = 1
@@ -54,6 +53,7 @@ def main():
         mesh = make_ray_mesh(devices[:n])
         n_rays = rays_per_device * n  # weak scaling: constant work per device
 
+        @jax.jit  # one compiled program: eager shard_map dispatches op by op
         def render(key):
             return render_ir_sharded(sc, key, n_rays, np.zeros(3, np.float32),
                                      np.array([4.0, 2.0, -3.0], np.float32),
@@ -91,7 +91,7 @@ def main():
             "efficiency column measures core CONTENTION, not the sharding "
             "design. It validates that the sharded program compiles, runs, "
             "and stays numerically correct at N devices — real scaling "
-            "curves require N real chips.")
+            "curves require N real devices.")
     out.write_text(json.dumps(payload, indent=2))
     print(f"wrote {out}")
 

@@ -4,7 +4,7 @@ Spawns N OS processes, each owning `devices_per_proc` virtual CPU devices,
 joined by `jax.distributed.initialize` (gloo collectives) into one global
 mesh, and measures the sharded renderer's throughput as the process count
 grows: 1 proc x 4 dev, 2 proc x 4 dev. On CPU the numbers reflect host-core
-contention, not ICI/DCN — the point is executing the multi-process runtime
+contention, not the interconnect — the point is executing the multi-process runtime
 and collectives for real and recording the curve shape.
 
 Writes benchmarks/scaling_results_multihost.json.
@@ -31,9 +31,9 @@ if nprocs > 1:
 import time
 import numpy as np
 import jax.numpy as jnp
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import testing
-from audiorenderingv2_tpu.parallel import make_ray_mesh, render_ir_sharded
+import audiorenderingv2 as ar
+from audiorenderingv2 import testing
+from audiorenderingv2.parallel import make_ray_mesh, render_ir_sharded
 
 v, t = testing.box_room((12.0, 8.0, 10.0))
 scene = testing.scene_from_arrays(v, t, 0.3)

@@ -1,7 +1,7 @@
 """BASELINE config #1: sphere scene, single bounce, 10k rays, 16 kHz IR,
 convolve guitar_sample_16k.wav.
 
-Runs on whatever backend jax provides (CPU reference / one TPU chip).
+Runs on whatever backend jax provides (the CPU or one GPU).
 Usage: python examples/demo_1_sphere.py [output.wav]
 """
 import sys
@@ -14,11 +14,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import jax
 import jax.numpy as jnp
 
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import testing
-from audiorenderingv2_tpu.core import sampling
-from audiorenderingv2_tpu.io import wav as wav_io
-from audiorenderingv2_tpu.ops import convolve
+import audiorenderingv2 as ar
+from audiorenderingv2 import testing
+from audiorenderingv2.core import sampling
+from audiorenderingv2.io import wav as wav_io
+from audiorenderingv2.ops import convolve
 
 REF_SPHERE = "/root/reference/sphere.obj"
 REF_WAV = "/root/reference/guitar_sample_16k.wav"

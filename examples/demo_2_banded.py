@@ -13,11 +13,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import jax
 import jax.numpy as jnp
 
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import testing
-from audiorenderingv2_tpu.core import sampling
-from audiorenderingv2_tpu.io import obj as obj_io
-from audiorenderingv2_tpu.scene import build_scene
+import audiorenderingv2 as ar
+from audiorenderingv2 import testing
+from audiorenderingv2.core import sampling
+from audiorenderingv2.io import obj as obj_io
+from audiorenderingv2.scene import build_scene
 
 REF_MONKEY = "/root/reference/monkey.obj"
 # Concrete-like: reflective lows, absorbent highs.

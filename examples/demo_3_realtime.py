@@ -13,11 +13,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
 
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import testing
-from audiorenderingv2_tpu.io import wav as wav_io
-from audiorenderingv2_tpu.renderer import AudioRenderer
-from audiorenderingv2_tpu.streaming import (Auralizer, ListenerTrajectory,
+import audiorenderingv2 as ar
+from audiorenderingv2 import testing
+from audiorenderingv2.io import wav as wav_io
+from audiorenderingv2.renderer import AudioRenderer
+from audiorenderingv2.streaming import (Auralizer, ListenerTrajectory,
                                             ReRenderPolicy, TrajectoryPoint)
 
 REF_SCENE = "/root/reference/assets/models/3D_U.obj"
@@ -33,11 +33,9 @@ def main(out_path="demo_walkthrough.wav"):
         v, t = testing.box_room((20.0, 10.0, 14.0))
         scene = testing.scene_from_arrays(v, t, 0.25)
 
-    backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-    n_rays = 1_000_000 if backend == "pallas" else 50_000
+    n_rays = 50_000 if jax.default_backend() == "cpu" else 1_000_000
     renderer = AudioRenderer(scene, ir_seconds=2, sample_rate=16000,
-                             n_rays=n_rays, base_power=3.62, max_bounces=8,
-                             opts=ar.TracerOptions(backend=backend))
+                             n_rays=n_rays, base_power=3.62, max_bounces=8)
 
     if Path(REF_WAV).exists():
         audio = wav_io.read_wav(REF_WAV)

@@ -10,9 +10,9 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import testing
-from audiorenderingv2_tpu.diff import (coarse_emitter_search, emitter_grid,
+import audiorenderingv2 as ar
+from audiorenderingv2 import testing
+from audiorenderingv2.diff import (coarse_emitter_search, emitter_grid,
                                        fit_scene_parameters, render_soft_ir)
 
 

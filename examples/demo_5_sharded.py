@@ -1,6 +1,5 @@
 """BASELINE config #5: multi-source multi-listener scene, rays sharded over
-a device mesh (16M rays on a pod slice; scaled-down automatically on small
-meshes).
+a device mesh (16M rays on GPUs; scaled down automatically on the CPU).
 
 Usage:
   python examples/demo_5_sharded.py              # real devices
@@ -25,9 +24,9 @@ else:
 
 import numpy as np
 
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import multi, testing
-from audiorenderingv2_tpu.parallel import make_ray_mesh, render_ir_sharded
+import audiorenderingv2 as ar
+from audiorenderingv2 import multi, testing
+from audiorenderingv2.parallel import make_ray_mesh, render_ir_sharded
 
 
 def main():
@@ -44,13 +43,12 @@ def main():
     scene = testing.scene_from_arrays(verts, tris, absorption)
     sc = ar.scene_to_arrays(scene, 512)
 
-    on_tpu = devices[0].platform == "tpu"
-    n_rays_total = 16_000_000 if on_tpu else 16_384
+    on_cpu = devices[0].platform == "cpu"
+    n_rays_total = 16_384 if on_cpu else 16_000_000
     n_rays = (n_rays_total // mesh.devices.size) * mesh.devices.size
     params = ar.TraceParams(sample_rate=16000, ir_length=32000,
                             base_power=3.62, max_bounces=8)
-    opts = ar.TracerOptions(backend="pallas" if on_tpu else "xla",
-                            tri_chunk=512, block_size=2048)
+    opts = ar.TracerOptions(tri_chunk=512, block_size=2048)
 
     # single-pair sharded render + timing
     t0 = time.time()

@@ -15,11 +15,11 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import native, testing
-from audiorenderingv2_tpu.io import wav as wav_io
-from audiorenderingv2_tpu.renderer import AudioRenderer
-from audiorenderingv2_tpu.streaming import LiveConvolver
+import audiorenderingv2 as ar
+from audiorenderingv2 import native, testing
+from audiorenderingv2.io import wav as wav_io
+from audiorenderingv2.renderer import AudioRenderer
+from audiorenderingv2.streaming import LiveConvolver
 
 REF_WAV = "/root/reference/assets/sound_samples/experimento_entrada_16KHz.wav"
 BLOCK = 4096  # input frames per callback (main.cpp mic path)

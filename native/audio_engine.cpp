@@ -1,9 +1,9 @@
-// Native audio streaming engine — the TPU build's RtAudio-equivalent runtime.
+// Native audio streaming engine — this package's RtAudio-equivalent runtime.
 //
 // The reference drives playback through RtAudio's device callback
 // (prebuild/rtaudio; main.cpp:69-161): a real-time thread repeatedly asks the
 // app for the next interleaved stereo block while the render thread swaps IR
-// buffers underneath. TPU pods have no sound card, so this engine reproduces
+// buffers underneath. Accelerator hosts have no sound card, so this engine reproduces
 // the same runtime structure against a file sink:
 //
 //   * a dedicated C++ streaming thread paces itself against the wall clock at

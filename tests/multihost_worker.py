@@ -30,12 +30,12 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    import audiorenderingv2_tpu as ar
-    from audiorenderingv2_tpu import testing
-    from audiorenderingv2_tpu.core import sampling
-    from audiorenderingv2_tpu.diff import (material_ids_padded,
+    import audiorenderingv2 as ar
+    from audiorenderingv2 import testing
+    from audiorenderingv2.core import sampling
+    from audiorenderingv2.diff import (material_ids_padded,
                                            with_material_absorption)
-    from audiorenderingv2_tpu.parallel import (make_ray_mesh,
+    from audiorenderingv2.parallel import (make_ray_mesh,
                                                render_ir_sharded,
                                                trace_directions_sharded)
 

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import testing
-from audiorenderingv2_tpu.core import sampling
-from audiorenderingv2_tpu.utils import acoustics
+import audiorenderingv2 as ar
+from audiorenderingv2 import testing
+from audiorenderingv2.core import sampling
+from audiorenderingv2.utils import acoustics
 
 SR = 8000
 

@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import testing
-from audiorenderingv2_tpu.renderer import AudioRenderer
+import audiorenderingv2 as ar
+from audiorenderingv2 import testing
+from audiorenderingv2.renderer import AudioRenderer
 
 
 def make_renderer(tmp_path, **kw):
@@ -41,7 +41,7 @@ def test_checkpoint_roundtrip(tmp_path):
     import jax.numpy as jnp
     import optax
 
-    from audiorenderingv2_tpu.diff.checkpoint import load_fit_state, save_fit_state
+    from audiorenderingv2.diff.checkpoint import load_fit_state, save_fit_state
 
     theta = {"a": jnp.arange(3.0), "b": jnp.ones((2, 2))}
     opt = optax.adam(0.1)
@@ -58,7 +58,7 @@ def test_checkpoint_roundtrip(tmp_path):
 
 def test_fit_resume_continues(tmp_path):
     """A fit interrupted at step N resumes from its checkpoint."""
-    from audiorenderingv2_tpu.diff import fit_scene_parameters, render_soft_ir
+    from audiorenderingv2.diff import fit_scene_parameters, render_soft_ir
 
     v, t = testing.box_room((10.0, 8.0, 9.0))
     scene = testing.scene_from_arrays(v, t, 0.35)
@@ -78,7 +78,7 @@ def test_fit_resume_continues(tmp_path):
 
 def test_plotting(tmp_path):
     pytest.importorskip("matplotlib")
-    from audiorenderingv2_tpu.utils import plotting
+    from audiorenderingv2.utils import plotting
 
     v, t = testing.box_room()
     scene = testing.scene_from_arrays(v, t, 0.3)

@@ -4,14 +4,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import testing
-from audiorenderingv2_tpu.config import MaterialSpec, parse_config
-from audiorenderingv2_tpu.core import sampling, tracer_ref
-from audiorenderingv2_tpu.io import obj as obj_io
-from audiorenderingv2_tpu.ops import filterbank
-from audiorenderingv2_tpu.scene import build_scene
-from audiorenderingv2_tpu.testing import mesh_from_arrays
+import audiorenderingv2 as ar
+from audiorenderingv2 import testing
+from audiorenderingv2.config import MaterialSpec, parse_config
+from audiorenderingv2.core import sampling, tracer_ref
+from audiorenderingv2.io import obj as obj_io
+from audiorenderingv2.ops import filterbank
+from audiorenderingv2.scene import build_scene
+from audiorenderingv2.testing import mesh_from_arrays
 
 SR = 8000
 BANDS = 4
@@ -87,7 +87,7 @@ def test_filterbank_reconstructs():
 
 
 def test_banded_convolution_uniform_ir_matches_broadband():
-    from audiorenderingv2_tpu.ops import convolve
+    from audiorenderingv2.ops import convolve
 
     rng = np.random.default_rng(1)
     x = rng.normal(size=3 * SR).astype(np.float32)
@@ -123,7 +123,7 @@ def test_config_banded_materials():
 
 
 def test_banded_renderer_end_to_end():
-    from audiorenderingv2_tpu.renderer import AudioRenderer
+    from audiorenderingv2.renderer import AudioRenderer
 
     v, t = testing.box_room((10.0, 8.0, 9.0))
     tri_abs = np.tile(np.array([0.1, 0.3, 0.6, 0.9], np.float32), (len(t), 1))
@@ -141,77 +141,3 @@ def test_banded_renderer_end_to_end():
     assert (out != 0).any()
 
 
-def test_8band_pallas_v2_matches_xla():
-    """Standard octave-band tables (8 bands) on the v2 fast path: the
-    16-column attribute / 32-column state layout == XLA tracer."""
-    n8 = 8
-    scene = banded_scene([0.05, 0.1, 0.2, 0.3, 0.45, 0.6, 0.75, 0.9])
-    sc = ar.scene_to_arrays(scene, 128)
-    params = ar.TraceParams(sample_rate=SR, ir_length=SR, base_power=3.62,
-                            max_bounces=6, n_bands=n8)
-    dirs = sampling.sample_directions(jax.random.PRNGKey(7), 256)
-    args = (jnp.zeros(3), jnp.array([2.0, 0.0, 1.0]), 15.0, params)
-    a = np.asarray(ar.trace_ir(sc, dirs, *args,
-                               ar.TracerOptions(backend="pallas",
-                                                pallas_version=2,
-                                                pallas_interpret=True)))
-    b = np.asarray(ar.trace_ir(sc, dirs, *args,
-                               ar.TracerOptions(backend="xla",
-                                                block_size=256,
-                                                tri_chunk=128)))
-    assert a.shape == (2, n8, SR)
-    assert a.sum() > 0
-    np.testing.assert_allclose(a, b, rtol=1e-3, atol=5e-7)
-    # band energies must decrease with increasing absorption
-    band_energy = a.sum(axis=(0, 2))
-    assert (np.diff(band_energy) <= 1e-9).all()
-
-
-def test_8band_clustered_pallas_matches_xla():
-    """8 bands through the cluster-culled (front-to-back) kernel path."""
-    from audiorenderingv2_tpu import accel
-
-    n8 = 8
-    v, t = testing.icosphere(radius=6.0, subdivisions=3)  # 1280 tris
-    tri_abs = np.tile(np.linspace(0.1, 0.8, n8, dtype=np.float32),
-                      (len(t), 1))
-    scene = build_scene(mesh_from_arrays(v, t), tri_abs)
-    sorted_scene, clusters = accel.prepare_scene(scene)
-    assert clusters is not None
-    sc = ar.scene_to_arrays(sorted_scene, 2048, clusters=clusters)
-    params = ar.TraceParams(sample_rate=SR, ir_length=SR, base_power=3.62,
-                            max_bounces=4, n_bands=n8)
-    dirs = sampling.sample_directions(jax.random.PRNGKey(8), 128)
-    args = (jnp.zeros(3), jnp.array([2.0, 0.5, -1.0]), 0.0, params)
-    a = np.asarray(ar.trace_ir(sc, dirs, *args,
-                               ar.TracerOptions(backend="pallas",
-                                                pallas_version=2,
-                                                pallas_interpret=True)))
-    b = np.asarray(ar.trace_ir(sc, dirs, *args,
-                               ar.TracerOptions(backend="xla",
-                                                block_size=128,
-                                                tri_chunk=128)))
-    assert a.shape == (2, n8, SR)
-    assert a.sum() > 0
-    np.testing.assert_allclose(a, b, rtol=1e-3, atol=5e-7)
-
-
-def test_banded_pallas_v2_matches_xla():
-    """The v2 Pallas kernel's banded path (interpret mode) == XLA tracer."""
-    scene = banded_scene([0.1, 0.3, 0.55, 0.8])
-    sc = ar.scene_to_arrays(scene, 128)
-    params = ar.TraceParams(sample_rate=SR, ir_length=SR, base_power=3.62,
-                            max_bounces=6, n_bands=BANDS)
-    dirs = sampling.sample_directions(jax.random.PRNGKey(4), 256)
-    args = (jnp.zeros(3), jnp.array([2.0, 0.0, 1.0]), 15.0, params)
-    a = np.asarray(ar.trace_ir(sc, dirs, *args,
-                               ar.TracerOptions(backend="pallas",
-                                                pallas_version=2,
-                                                pallas_interpret=True)))
-    b = np.asarray(ar.trace_ir(sc, dirs, *args,
-                               ar.TracerOptions(backend="xla",
-                                                block_size=256,
-                                                tri_chunk=128)))
-    assert a.shape == (2, BANDS, SR)
-    assert a.sum() > 0
-    np.testing.assert_allclose(a, b, rtol=1e-3, atol=5e-7)

@@ -1,9 +1,10 @@
-"""Sort-based histogram vs numpy scatter; soft-binning gradients."""
+"""Scatter-add IR histogram vs float64 numpy; soft-binning gradients."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from audiorenderingv2_tpu.core import binning
+from audiorenderingv2.core import binning
 
 
 def test_histogram_matches_numpy_scatter():
@@ -27,7 +28,7 @@ def test_histogram_jit_and_empty_bins():
 
 
 def test_hard_deposit_rounds():
-    from audiorenderingv2_tpu.core.tracer import _slot_bins
+    from audiorenderingv2.core.tracer import _slot_bins
 
     bins, fracs = _slot_bins(jnp.array([1.4, 1.6, 2.5]),
                              jnp.array([True, True, True]), 10, soft=False)
@@ -39,7 +40,7 @@ def test_hard_deposit_rounds():
 
 
 def test_soft_deposit_interpolates():
-    from audiorenderingv2_tpu.core.tracer import _slot_bins
+    from audiorenderingv2.core.tracer import _slot_bins
 
     bins, fracs = _slot_bins(jnp.array([2.25]), jnp.array([True]), 10, soft=True)
     np.testing.assert_array_equal(np.asarray(bins)[0], [2, 3])
@@ -48,7 +49,7 @@ def test_soft_deposit_interpolates():
 
 def test_soft_binning_delay_gradient():
     """d(hist)/d(bin position) must exist and match the interpolation slope."""
-    from audiorenderingv2_tpu.core.tracer import _slot_bins
+    from audiorenderingv2.core.tracer import _slot_bins
 
     def loss(bin_f):
         bins, ws = _slot_bins(bin_f, jnp.ones_like(bin_f, dtype=bool), 8,
@@ -70,53 +71,13 @@ def test_weight_gradient_through_sort():
     np.testing.assert_allclose(np.asarray(g), [0.0, 2.0, 2.0, 1.0])
 
 
-def test_pallas_histogram_matches_numpy_scatter():
-    """Matmul-scatter kernel (interpret mode) == float64 numpy scatter,
-    including out-of-range drops and multiple bands. (Compared against the
-    exact oracle rather than the sort path: the sort path's cumsum-difference
-    trick carries ~1e-4 cancellation noise at this event count, while the
-    kernel's per-bin MXU accumulation is direct.)"""
-    from audiorenderingv2_tpu.ops import histogram_pallas
-
-    rng = np.random.default_rng(3)
-    e, n_bins, n_bands = 4096 + 77, 1000, 3
-    flat = rng.integers(-10, n_bins + 50, size=e).astype(np.int32)
-    w = rng.random(size=(e, n_bands)).astype(np.float32)
-    got = np.asarray(histogram_pallas.histogram_sum_banded_pallas(
-        jnp.asarray(flat), jnp.asarray(w), n_bins, True))
-    expect = np.zeros((n_bins, n_bands), np.float64)
-    for b, x in zip(flat, w):
-        if 0 <= b < n_bins:
-            expect[b] += x
-    np.testing.assert_allclose(got, expect, rtol=1e-5, atol=1e-5)
-
-
-def test_pallas_histogram_weight_gradient():
-    """The custom VJP (gather of the cotangent) == the sort path's grad."""
-    from audiorenderingv2_tpu.ops import histogram_pallas
-
-    rng = np.random.default_rng(4)
-    e, n_bins = 600, 64
-    flat = jnp.asarray(rng.integers(-3, n_bins + 3, size=e).astype(np.int32))
-    w = jnp.asarray(rng.random(size=(e, 2)).astype(np.float32))
-    probe = jnp.asarray(rng.random(size=(n_bins, 2)).astype(np.float32))
-
-    g_pl = jax.grad(lambda x: jnp.sum(
-        probe * histogram_pallas.histogram_sum_banded_pallas(
-            flat, x, n_bins, True)))(w)
-    g_sort = jax.grad(lambda x: jnp.sum(
-        probe * binning.histogram_sum_banded(flat, x, n_bins)))(w)
-    np.testing.assert_allclose(np.asarray(g_pl), np.asarray(g_sort),
-                               rtol=1e-5, atol=1e-6)
-
-
 def test_soft_cross_ear_overflow_fallback():
     """A cross-ear deposit whose delayed bin would overflow the IR end
     falls back to the base bin in SOFT mode too (r5 fix of the r4 parity
     delta) — matching hard mode's energy placement in the last `delay`
     samples instead of dropping it."""
-    import audiorenderingv2_tpu as ar
-    from audiorenderingv2_tpu.core.tracer import _histogram_from_events
+    import audiorenderingv2 as ar
+    from audiorenderingv2.core.tracer import _histogram_from_events
 
     params = ar.TraceParams(sample_rate=16000, ir_length=100,
                             base_power=1.0, max_bounces=4,
@@ -140,43 +101,112 @@ def test_soft_cross_ear_overflow_fallback():
     np.testing.assert_allclose(soft.sum(), hard.sum(), rtol=1e-6)
 
 
-def test_chunked_pallas_histogram_matches_sort(monkeypatch):
-    """Long-IR accumulators past the VMEM budget chunk the BIN RANGE
-    through the Pallas kernel (r5 fix: the silent sort-path fallback's
-    f32 running sum zeroes small late deposits at scale)."""
-    import jax.numpy as jnp
-
-    from audiorenderingv2_tpu.core import binning
-    from audiorenderingv2_tpu.ops import histogram_pallas as hp
-
-    monkeypatch.setattr(hp, "_MAX_ACC_BYTES", 8 * 128 * 4 * 2)
-    orig = hp.histogram_sum_banded_pallas
-    monkeypatch.setattr(hp, "histogram_sum_banded_pallas",
-                        lambda f, w, nb: orig(f, w, nb, interpret=True))
-    assert not hp.fits_vmem(7000, 2)
-    assert 1 <= hp.max_bins(2) < 7000
-    rng = np.random.default_rng(0)
-    bins_np = rng.integers(-5, 7100, 4096)
-    w_np = rng.random((4096, 2)).astype(np.float32)
-    out = binning.histogram_sum_banded(jnp.asarray(bins_np, jnp.int32),
-                                       jnp.asarray(w_np), 7000,
-                                       use_pallas=True)
-    assert out.shape == (7000, 2)
-    # float64 scatter oracle (the sort path itself carries the cumsum
-    # swamping error this fix avoids, so it is NOT the reference here)
-    ref = np.zeros((7000, 2))
-    for b, wv in zip(bins_np, w_np.astype(np.float64)):
-        if 0 <= b < 7000:
-            ref[b] += wv
-    np.testing.assert_allclose(np.asarray(out), ref, rtol=1e-5, atol=1e-7)
-
-
 def test_histogram_length_mismatch_raises():
     import jax.numpy as jnp
     import pytest
 
-    from audiorenderingv2_tpu.core import binning
+    from audiorenderingv2.core import binning
 
     with pytest.raises(ValueError, match="weight rows"):
         binning.histogram_sum_banded(jnp.zeros(10, jnp.int32),
                                      jnp.zeros((6, 1)), 16)
+
+
+def _float64_hist(bins, w, n_bins):
+    keep = (bins >= 0) & (bins < n_bins)
+    return np.stack([np.bincount(bins[keep], w[keep, k].astype(np.float64),
+                                 minlength=n_bins)
+                     for k in range(w.shape[1])], axis=1)
+
+
+@pytest.mark.parametrize("n_bands", [1, 4, 8])
+@pytest.mark.parametrize("n_events", [0, 1, 4096, 65536, 1_000_000])
+def test_scatter_add_matches_float64(n_events, n_bands):
+    """Every occupied bin within 1e-5 of float64, none zeroed, at event
+    counts from empty to a 1M-ray render's."""
+    rng = np.random.default_rng(n_events + n_bands)
+    n_bins = 6000
+    bins = rng.integers(-20, n_bins + 20, n_events).astype(np.int32)
+    w = rng.uniform(1e-9, 1e-6, (n_events, n_bands)).astype(np.float32)
+    got = np.asarray(binning.histogram_sum_banded(
+        jnp.asarray(bins), jnp.asarray(w), n_bins))
+    ref = _float64_hist(bins, w, n_bins)
+    assert got.shape == (n_bins, n_bands)
+    occ = ref > 0
+    assert (got[~occ] == 0).all()
+    assert (got[occ] != 0).all()
+    np.testing.assert_allclose(got[occ], ref[occ], rtol=1e-5)
+
+
+def test_reverb_tail_survives_at_render_scale():
+    """Render-shaped input — 1M events into 2 ears x 64,000 bins, weights
+    decaying exponentially with the bin — keeps its late, small deposits:
+    the failure of a cumsum-difference histogram, whose f32 running sum
+    swamps them."""
+    rng = np.random.default_rng(0)
+    n_bins = 2 * 64000
+    bins = np.minimum(rng.exponential(n_bins / 4, 1_000_000),
+                      n_bins + 99).astype(np.int32)
+    w = (np.exp(-bins / 20000.0) * rng.uniform(0.5, 1.0, bins.size)
+         * 1e-6).astype(np.float32)[:, None]
+    got = np.asarray(binning.histogram_sum_banded(
+        jnp.asarray(bins), jnp.asarray(w), n_bins))[:, 0]
+    ref = _float64_hist(bins, w, n_bins)[:, 0]
+    occ = ref > 0
+    assert (got[occ] != 0).all()
+    rel = np.abs(got[occ] - ref[occ]) / ref[occ]
+    assert rel.max() <= 1e-5
+    tail = occ & (np.arange(n_bins) >= n_bins - 10000)
+    assert tail.sum() > 100  # the tail is populated and checked above
+
+
+@pytest.mark.parametrize("bad_bin", [-1, -(2 ** 31), 64, 65, 2 ** 31 - 1])
+def test_out_of_range_bins_dropped(bad_bin):
+    """Negative and past-the-end bins land in the spare row, never in a
+    real bin (no clamping onto the first or last bin)."""
+    bins = jnp.array([3, bad_bin, 63, bad_bin], jnp.int32)
+    w = jnp.array([[1.0], [5.0], [2.0], [7.0]], jnp.float32)
+    got = np.asarray(binning.histogram_sum_banded(bins, w, 64))[:, 0]
+    expect = np.zeros(64)
+    expect[3], expect[63] = 1.0, 2.0
+    np.testing.assert_array_equal(got, expect)
+
+
+@pytest.mark.parametrize("n_bands", [1, 4])
+def test_banded_weight_gradient_is_gather(n_bands):
+    """d(sum(probe * hist))/d(w) is the probe gathered at each event's bin,
+    and zero for dropped events."""
+    rng = np.random.default_rng(4)
+    n_bins = 64
+    bins = rng.integers(-3, n_bins + 3, 600).astype(np.int32)
+    w = jnp.asarray(rng.random((600, n_bands)), jnp.float32)
+    probe = rng.random((n_bins, n_bands)).astype(np.float32)
+    g = np.asarray(jax.grad(lambda x: jnp.sum(
+        probe * binning.histogram_sum_banded(jnp.asarray(bins), x,
+                                             n_bins)))(w))
+    keep = (bins >= 0) & (bins < n_bins)
+    expect = np.zeros((600, n_bands), np.float32)
+    expect[keep] = probe[bins[keep]]
+    np.testing.assert_allclose(g, expect, rtol=1e-6)
+
+
+@pytest.mark.parametrize("position", [2.25, 5.5, 6.9])
+def test_soft_delay_gradient_matches_finite_difference(position):
+    """The arrival-delay gradient through soft binning + scatter-add equals
+    the finite-difference slope of a smooth readout of the histogram."""
+    from audiorenderingv2.core.tracer import _slot_bins
+
+    readout = jnp.asarray(np.sin(np.arange(10) * 0.7) + 2.0, jnp.float32)
+
+    def loss(bin_f):
+        bins, ws = _slot_bins(bin_f, jnp.ones_like(bin_f, dtype=bool), 10,
+                              soft=True)
+        return jnp.sum(readout * binning.histogram_sum(bins, ws, 10))
+
+    x = jnp.array([position], jnp.float32)
+    g = float(jax.grad(loss)(x)[0])
+    eps = 1e-2
+    fd = float(loss(x + eps) - loss(x - eps)) / (2 * eps)
+    lo = int(np.floor(position))
+    assert abs(g - float(readout[lo + 1] - readout[lo])) < 1e-5
+    assert abs(g - fd) < 1e-3

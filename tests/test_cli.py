@@ -5,8 +5,8 @@ import json
 import numpy as np
 import pytest
 
-from audiorenderingv2_tpu import cli, testing
-from audiorenderingv2_tpu.io import wav as wav_io
+from audiorenderingv2 import cli, testing
+from audiorenderingv2.io import wav as wav_io
 
 
 @pytest.fixture

@@ -4,7 +4,7 @@ import os
 
 import pytest
 
-from audiorenderingv2_tpu.config import load_config, parse_config
+from audiorenderingv2.config import load_config, parse_config
 
 REF = "/root/reference"
 
@@ -57,7 +57,7 @@ def test_rounding_quirks():
 def test_unknown_key_warns():
     import warnings
 
-    from audiorenderingv2_tpu.config import ConfigWarning
+    from audiorenderingv2.config import ConfigWarning
 
     with pytest.warns(ConfigWarning, match="re_render_distanse"):
         cfg = parse_config({"renderer_parameters":

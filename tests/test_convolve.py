@@ -3,7 +3,7 @@ reference algorithm, plus analytic cases."""
 import numpy as np
 import jax.numpy as jnp
 
-from audiorenderingv2_tpu.ops import convolve
+from audiorenderingv2.ops import convolve
 
 
 def numpy_reference_ola(samples, ir, sr):

@@ -8,10 +8,10 @@ distinct measurements, not one number under two names.
 import jax.numpy as jnp
 import numpy as np
 
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import testing
-from audiorenderingv2_tpu.experiment import run_experiment
-from audiorenderingv2_tpu.renderer import AudioRenderer
+import audiorenderingv2 as ar
+from audiorenderingv2 import testing
+from audiorenderingv2.experiment import run_experiment
+from audiorenderingv2.renderer import AudioRenderer
 
 
 def make_renderer():
@@ -31,7 +31,7 @@ def test_convolute_and_process_are_distinct_measurements():
     assert len(res.convolute.times_ms) == 3
     assert len(res.convolute_process.times_ms) == 3
     # Independently timed stages: identical lists would mean the old
-    # t_proc = t_conv aliasing (ADVICE r3 / VERDICT r3 weakness 4).
+    # t_proc = t_conv aliasing (the two stages timed as one).
     assert res.convolute.times_ms != res.convolute_process.times_ms
     text = res.summary()
     assert "avg convolute time" in text

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import testing
-from audiorenderingv2_tpu.core import sampling
-from audiorenderingv2_tpu.diff import (fit_scene_parameters, ir_loss,
+import audiorenderingv2 as ar
+from audiorenderingv2 import testing
+from audiorenderingv2.core import sampling
+from audiorenderingv2.diff import (fit_scene_parameters, ir_loss,
                                        material_ids_padded, render_soft_ir,
                                        with_material_absorption)
 
@@ -124,8 +124,8 @@ def test_inverse_fit_recovers_banded_absorption():
     """Frequency-dependent inverse: recover per-band absorption [0.2, 0.6]."""
     import numpy as _np
 
-    from audiorenderingv2_tpu.scene import build_scene
-    from audiorenderingv2_tpu.testing import mesh_from_arrays
+    from audiorenderingv2.scene import build_scene
+    from audiorenderingv2.testing import mesh_from_arrays
 
     true_bands = _np.array([0.2, 0.6], _np.float32)
     v, t = testing.box_room((10.0, 8.0, 9.0))

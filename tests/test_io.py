@@ -4,9 +4,9 @@ import os
 import numpy as np
 import pytest
 
-from audiorenderingv2_tpu.config import MaterialSpec
-from audiorenderingv2_tpu.io import obj as obj_io
-from audiorenderingv2_tpu.io import wav as wav_io
+from audiorenderingv2.config import MaterialSpec
+from audiorenderingv2.io import obj as obj_io
+from audiorenderingv2.io import wav as wav_io
 
 REF = "/root/reference"
 
@@ -88,7 +88,7 @@ def test_wav_odd_payload_word_aligned(tmp_path):
 
 
 def test_unmatched_config_material_warns():
-    from audiorenderingv2_tpu.config import ConfigWarning
+    from audiorenderingv2.config import ConfigWarning
 
     mats = [MaterialSpec("red", 0.2), MaterialSpec("typo", 0.9)]
     with pytest.warns(ConfigWarning, match="typo"):
@@ -139,7 +139,7 @@ def test_aifc_sowt_24bit_roundtrip(tmp_path):
     byte-swapped noise (r5 review fix)."""
     import struct
 
-    from audiorenderingv2_tpu.io import wav as wav_io
+    from audiorenderingv2.io import wav as wav_io
 
     sr = 8000
     x = (np.sin(2 * np.pi * 440 * np.arange(64) / sr)).astype(np.float32)
@@ -174,7 +174,7 @@ def test_aifc_sowt_24bit_roundtrip(tmp_path):
 def test_wav_malformed_fmt_raises_value_error(tmp_path):
     import struct
 
-    from audiorenderingv2_tpu.io import wav as wav_io
+    from audiorenderingv2.io import wav as wav_io
 
     # zero channels
     fmt = struct.pack("<HHIIHH", 1, 0, 8000, 16000, 2, 16)

@@ -9,15 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from audiorenderingv2_tpu import testing
-from audiorenderingv2_tpu.ops import convolve
-from audiorenderingv2_tpu.parallel.ir_sharding import (
+from audiorenderingv2.ops import convolve
+from audiorenderingv2.parallel.ir_sharding import (
     convolve_file_sharded, make_segment_mesh)
-
-pytestmark = pytest.mark.skipif(
-    testing.on_tpu_suite() and len(jax.devices()) < 8,
-    reason="needs the 8-device virtual CPU mesh; the real backend has "
-           "1 device")
 
 SR = 4000
 

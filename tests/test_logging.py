@@ -8,9 +8,9 @@ import json
 
 import numpy as np
 
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import testing
-from audiorenderingv2_tpu.utils import logging as arlog
+import audiorenderingv2 as ar
+from audiorenderingv2 import testing
+from audiorenderingv2.utils import logging as arlog
 
 
 def test_event_record_shape(tmp_path):
@@ -39,7 +39,7 @@ def test_full_render_cycle_emits_record(tmp_path):
     path = tmp_path / "cycle.jsonl"
     arlog.configure(path=str(path))
     try:
-        from audiorenderingv2_tpu.renderer import AudioRenderer
+        from audiorenderingv2.renderer import AudioRenderer
 
         v, t = testing.box_room((4.0, 3.0, 3.0))
         scene = testing.scene_from_arrays(v, t, 0.3)

@@ -3,9 +3,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import multi, testing
-from audiorenderingv2_tpu.core import sampling
+import audiorenderingv2 as ar
+from audiorenderingv2 import multi, testing
+from audiorenderingv2.core import sampling
 
 SR = 8000
 
@@ -41,8 +41,8 @@ def test_matrix_shape_and_single_pair_parity():
     # pair_batch=1 (per-pair async dispatch, no vmap) gives the same matrix
     irs1 = multi.render_ir_matrix(sc, key, emitters, receivers, yaws, 512,
                                   params, opts, pair_batch=1)
-    # two program structures -> f32 summation-order drift on chip
-    # (36/96000 bins at rel 5e-4 in the r4 on-chip run); exact on CPU.
+    # two program structures -> f32 summation-order drift on an
+    # accelerator; exact on CPU.
     # Flatten to per-(source, listener, ear) rows so the statistical
     # mode's energy check binds at that granularity, not per source.
     testing.assert_ir_close(irs1.reshape(-1, irs1.shape[-1]),
@@ -50,72 +50,10 @@ def test_matrix_shape_and_single_pair_parity():
                             rtol=1e-5, atol=1e-9)
 
 
-def test_fused_pose_batch_matches_per_pair():
-    """The fused multi-pose launch (one kernel, per-tile pose scalar rows,
-    pose-grouped compaction, pose-major histogram) == independent per-pair
-    renders with the same key stream."""
-    sc, params, _ = setup()
-    popts = ar.TracerOptions(backend="pallas", pallas_version=2,
-                             pallas_interpret=True,
-                             pallas_round_budgets=(2, 4))
-    key = jax.random.PRNGKey(3)
-    emitters = np.array([[0.0, 0.0, 0.0], [2.0, 1.0, -1.0]], np.float32)
-    receivers = np.array([[3.0, 0.0, 1.0], [-2.0, -1.0, 2.0],
-                          [0.0, 2.0, -3.0]], np.float32)
-    yaws = np.array([0.0, 45.0, -90.0], np.float32)
-    fused = multi.render_ir_matrix(sc, key, emitters, receivers, yaws, 512,
-                                   params, popts, pair_batch=0)
-    assert fused.shape == (2, 3, 2, SR)
-    assert fused.sum() > 0
-    # per-pair reference renders through the same pallas options
-    for i, (si, li) in enumerate([(0, 0), (1, 2)]):
-        k = jax.random.fold_in(key, si * 3 + li)
-        dirs = sampling.sample_directions(k, 512)
-        single = np.asarray(ar.trace_ir(
-            sc, dirs, jnp.asarray(emitters[si]), jnp.asarray(receivers[li]),
-            float(yaws[li]), params, popts))
-        np.testing.assert_allclose(fused[si, li], single, rtol=1e-4,
-                                   atol=1e-8)
-
-
-def test_fused_pose_batch_clustered_schedule():
-    """Pose batching through the clustered schedule path: per-tile
-    candidate lists compose with per-tile pose scalars + per-pose coherent
-    sorts (the multi-listener path for LARGE scenes)."""
-    from audiorenderingv2_tpu import accel, testing
-
-    v, t = testing.icosphere(radius=6.0, subdivisions=3)  # 1280 tris
-    scene = testing.scene_from_arrays(v, t, 0.2)
-    sorted_scene, clusters = accel.prepare_scene(scene, cluster_size=32)
-    sc = ar.scene_to_arrays(sorted_scene, 128, clusters=clusters)
-    params = ar.TraceParams(sample_rate=8000, ir_length=8000,
-                            base_power=3.62, max_bounces=5)
-    popts = ar.TracerOptions(backend="pallas", pallas_version=2,
-                             pallas_interpret=True, pallas_schedule=True,
-                             pallas_key_layout="dir72", pallas_tri_block=32,
-                             pallas_sched_unroll=2)
-    key = jax.random.PRNGKey(8)
-    emitters = np.zeros((2, 3), np.float32)
-    receivers = np.array([[1.5, 0.5, -1.0], [-2.0, 1.0, 2.0]], np.float32)
-    yaws = np.array([10.0, -45.0], np.float32)
-    fused = multi.render_ir_matrix(sc, key, emitters, receivers, yaws, 256,
-                                   params, popts, pair_batch=0)
-    assert fused.shape == (2, 2, 2, 8000)
-    assert fused.sum() > 0
-    for si, li in [(0, 1), (1, 0)]:
-        k = jax.random.fold_in(key, si * 2 + li)
-        dirs = sampling.sample_directions(k, 256)
-        single = np.asarray(ar.trace_ir(
-            sc, dirs, jnp.asarray(emitters[si]), jnp.asarray(receivers[li]),
-            float(yaws[li]), params, popts))
-        np.testing.assert_allclose(fused[si, li], single, rtol=1e-4,
-                                   atol=1e-8)
-
-
 def test_matrix_sharded_batches_pairs():
     """mesh branch: pairs ride inside the sharded dispatch (vmap outside
     shard_map) and match per-pair render_ir_sharded calls exactly."""
-    from audiorenderingv2_tpu.parallel import sharding
+    from audiorenderingv2.parallel import sharding
 
     sc, params, opts = setup()
     mesh = sharding.make_ray_mesh()
@@ -156,45 +94,11 @@ def test_mix_is_linear():
     np.testing.assert_allclose(mixed, only_a + padded_b, rtol=1e-4, atol=1e-6)
 
 
-def test_fused_pose_batch_banded():
-    """Banded (frequency-dependent) IRs through the fused pose batch (r5:
-    the r4 gate forced banded matrices onto the ~5x-slower vmapped
-    fallback). Fused == per-pair banded renders with the same key stream."""
-    from audiorenderingv2_tpu import testing
-
-    v, t = testing.box_room((6.0, 4.0, 5.0))
-    absorb = np.tile(np.array([[0.1, 0.3, 0.5, 0.7]], np.float32),
-                     (t.shape[0], 1))
-    scene = testing.scene_from_arrays(v, t, absorb)
-    sc = ar.scene_to_arrays(scene, 128)
-    params = ar.TraceParams(sample_rate=SR, ir_length=SR, base_power=3.62,
-                            max_bounces=6, n_bands=4)
-    popts = ar.TracerOptions(backend="pallas", pallas_version=2,
-                             pallas_interpret=True,
-                             pallas_round_budgets=(2, 4))
-    key = jax.random.PRNGKey(7)
-    emitters = np.array([[0.5, 0.2, -0.3]], np.float32)
-    receivers = np.array([[1.5, 0.0, 1.0], [-1.0, -0.5, 0.8]], np.float32)
-    yaws = np.array([0.0, 30.0], np.float32)
-    fused = multi.render_ir_matrix(sc, key, emitters, receivers, yaws, 256,
-                                   params, popts, pair_batch=0)
-    assert fused.shape == (1, 2, 2, 4, SR)
-    assert fused.sum() > 0
-    for li in (0, 1):
-        k = jax.random.fold_in(key, li)
-        dirs = sampling.sample_directions(k, 256)
-        single = np.asarray(ar.trace_ir(
-            sc, dirs, jnp.asarray(emitters[0]), jnp.asarray(receivers[li]),
-            float(yaws[li]), params, popts))
-        np.testing.assert_allclose(fused[0, li], single, rtol=1e-4,
-                                   atol=1e-7)
-
-
 def test_banded_matrix_fallback_and_mix_shapes():
     """Every render_ir_matrix path returns the banded [S, L, 2, n_bands,
     ir_length] shape, and mix_sources auralizes it via the filterbank
     (r5 contract fix — the fallback paths used to crash on banded)."""
-    from audiorenderingv2_tpu import testing
+    from audiorenderingv2 import testing
 
     v, t = testing.box_room((6.0, 4.0, 5.0))
     absorb = np.tile(np.array([[0.1, 0.3, 0.5, 0.7]], np.float32),
@@ -216,7 +120,7 @@ def test_banded_matrix_fallback_and_mix_shapes():
     m1 = multi.render_ir_matrix(sc, key, emitters, receivers, yaws, 256,
                                 params, xopts, pair_batch=1)
     assert m1.shape == (1, 2, 2, 4, SR)
-    # two program structures -> f32 summation-order drift on chip
+    # two program structures -> f32 summation-order drift on an accelerator
     np.testing.assert_allclose(m, m1, rtol=1e-4, atol=1e-7)
     # banded mix
     sig = np.random.default_rng(0).standard_normal(SR // 2).astype(np.float32)

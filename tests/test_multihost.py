@@ -19,9 +19,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import testing
-from audiorenderingv2_tpu.core import sampling
+import audiorenderingv2 as ar
+from audiorenderingv2 import testing
+from audiorenderingv2.core import sampling
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "multihost_worker.py")
@@ -102,7 +102,7 @@ def test_two_process_gradient_psum(worker_outputs):
     assert np.abs(a["grad"]).sum() > 0, "gradient vanished across processes"
 
     # parity with the single-process gradient of the same loss
-    from audiorenderingv2_tpu.diff import (material_ids_padded,
+    from audiorenderingv2.diff import (material_ids_padded,
                                            with_material_absorption)
 
     v, t = testing.box_room((12.0, 8.0, 10.0))

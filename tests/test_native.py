@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from audiorenderingv2_tpu import native
-from audiorenderingv2_tpu.streaming import RingBuffer
+from audiorenderingv2 import native
+from audiorenderingv2.streaming import RingBuffer
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native toolchain unavailable")

@@ -4,25 +4,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import testing
-from audiorenderingv2_tpu.core import sampling
-from audiorenderingv2_tpu.parallel import make_ray_mesh, render_ir_sharded, trace_directions_sharded
+import audiorenderingv2 as ar
+from audiorenderingv2 import testing
+from audiorenderingv2.core import sampling
+from audiorenderingv2.parallel import make_ray_mesh, render_ir_sharded, trace_directions_sharded
 
 SR = 16000
-
-# These tests encode the 8-device mesh the conftest provides on CPU
-# (mesh-spanning asserts, divisibility errors, interpret-mode pallas under
-# shard_map). The real backend exposes ONE chip, so the shapes they pin
-# don't exist there — r3's on-chip run failed exactly the mesh-shape
-# subset (docs/ROUND4.md). On-chip shard_map coverage lives in
-# test_tpu_parity.py (shard_map + pallas_call on the real device) and the
-# driver's dryrun_multichip.
-pytestmark = pytest.mark.skipif(
-    testing.on_tpu_suite() and len(jax.devices()) < 8,
-    reason="needs the 8-device virtual CPU mesh; the real backend has "
-           "1 device (on-chip shard_map parity: test_tpu_parity.py)")
-
 
 def make_box():
     v, t = testing.box_room((12.0, 8.0, 10.0))
@@ -83,7 +70,7 @@ def test_gradients_through_sharded_trace():
     single-device gradient (the 'grad all-reduce' path)."""
     import dataclasses
 
-    from audiorenderingv2_tpu.diff import material_ids_padded, with_material_absorption
+    from audiorenderingv2.diff import material_ids_padded, with_material_absorption
 
     scene = make_box()
     opts = ar.TracerOptions(block_size=128, tri_chunk=128, early_exit=False,
@@ -112,76 +99,3 @@ def test_gradients_through_sharded_trace():
     np.testing.assert_allclose(g8, g1, rtol=1e-3, atol=1e-10)
 
 
-def test_sharded_pallas_backend_interpret():
-    """The production configuration — fused Pallas kernel under shard_map —
-    executed on the 8-device mesh (interpret mode runs the exact kernel
-    logic on CPU). Parity against the sharded XLA backend."""
-    scene = make_box()
-    sc = ar.scene_to_arrays(scene, 128)
-    p = params()
-    dirs = sampling.sample_directions(jax.random.PRNGKey(7), 1024)
-    rec = jnp.array([2.0, 0.0, 1.0])
-    xla = trace_directions_sharded(
-        sc, dirs, jnp.zeros(3), rec, 20.0, p,
-        ar.TracerOptions(block_size=128, tri_chunk=128))
-    pal = trace_directions_sharded(
-        sc, dirs, jnp.zeros(3), rec, 20.0, p,
-        ar.TracerOptions(backend="pallas", pallas_version=2,
-                         pallas_interpret=True))
-    # compaction reorders deposits -> different f32 summation order
-    np.testing.assert_allclose(np.asarray(pal), np.asarray(xla),
-                               rtol=1e-4, atol=5e-8)
-
-
-def test_sharded_pallas_clustered_interpret():
-    """Cluster-culled (front-to-back traversal) kernel under shard_map."""
-    from audiorenderingv2_tpu import accel
-
-    v, t = testing.icosphere(radius=5.0, subdivisions=3)  # 1280 tris
-    scene = testing.scene_from_arrays(v, t, 0.25)
-    sorted_scene, clusters = accel.prepare_scene(scene)
-    assert clusters is not None
-    sc = ar.scene_to_arrays(sorted_scene, 128, clusters=clusters)
-    p = ar.TraceParams(sample_rate=8000, ir_length=8000, base_power=3.62,
-                       max_bounces=4)
-    dirs = sampling.sample_directions(jax.random.PRNGKey(2), 512)
-    rec = jnp.array([1.5, 0.5, -0.5])
-    xla = trace_directions_sharded(
-        sc, dirs, jnp.zeros(3), rec, 0.0, p,
-        ar.TracerOptions(block_size=128, tri_chunk=128))
-    pal = trace_directions_sharded(
-        sc, dirs, jnp.zeros(3), rec, 0.0, p,
-        ar.TracerOptions(backend="pallas", pallas_version=2,
-                         pallas_interpret=True))
-    np.testing.assert_allclose(np.asarray(pal), np.asarray(xla),
-                               rtol=1e-4, atol=1e-9)
-
-
-def test_sharded_schedule_mode_interpret():
-    """The large-scene production configuration — schedule-mode clustered
-    kernel (XLA per-round candidate lists, dir72 keys, tb32 + sched_unroll)
-    — under shard_map on the 8-device mesh. Validates the multi-chip
-    large-scene claim: per-shard tile schedules are computed on local ray
-    state, so the path is embarrassingly parallel up to the final psum."""
-    from audiorenderingv2_tpu import accel
-
-    v, t = testing.icosphere(radius=6.0, subdivisions=3)
-    scene = testing.scene_from_arrays(v, t, 0.2)
-    sorted_scene, clusters = accel.prepare_scene(scene, cluster_size=32)
-    sc = ar.scene_to_arrays(sorted_scene, 128, clusters=clusters)
-    p = ar.TraceParams(sample_rate=8000, ir_length=8000, base_power=3.62,
-                       max_bounces=4)
-    dirs = sampling.sample_directions(jax.random.PRNGKey(9), 1024)
-    rec = jnp.array([1.5, 0.5, -1.0])
-    pal = trace_directions_sharded(
-        sc, dirs, jnp.zeros(3), rec, 10.0, p,
-        ar.TracerOptions(backend="pallas", pallas_version=2,
-                         pallas_schedule=True, pallas_key_layout="dir72",
-                         pallas_tri_block=32, pallas_sched_unroll=4,
-                         pallas_interpret=True))
-    xla = trace_directions_sharded(
-        sc, dirs, jnp.zeros(3), rec, 10.0, p,
-        ar.TracerOptions(block_size=128, tri_chunk=128))
-    # compaction reorders deposits -> f32 summation-order differences
-    np.testing.assert_allclose(np.asarray(pal), np.asarray(xla),
-                               rtol=1e-3, atol=5e-7)

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from audiorenderingv2_tpu import streaming
-from audiorenderingv2_tpu.streaming import ReRenderPolicy, RingBuffer, ListenerTrajectory, TrajectoryPoint
+from audiorenderingv2 import streaming
+from audiorenderingv2.streaming import ReRenderPolicy, RingBuffer, ListenerTrajectory, TrajectoryPoint
 
 
 def test_ring_add_does_not_advance():
@@ -89,10 +89,10 @@ def test_settle_does_not_fire_at_rendered_pose():
 def test_async_render_worker():
     """The detached-worker runtime: requests coalesce, latest output swaps in
     (main.cpp:40-67 semantics)."""
-    import audiorenderingv2_tpu as ar
-    from audiorenderingv2_tpu import testing
-    from audiorenderingv2_tpu.renderer import AudioRenderer
-    from audiorenderingv2_tpu.streaming import AsyncRenderWorker
+    import audiorenderingv2 as ar
+    from audiorenderingv2 import testing
+    from audiorenderingv2.renderer import AudioRenderer
+    from audiorenderingv2.streaming import AsyncRenderWorker
 
     v, t = testing.box_room((10.0, 8.0, 9.0))
     scene = testing.scene_from_arrays(v, t, 0.3)
@@ -123,10 +123,10 @@ def test_live_duplex_rerender_under_stream(tmp_path):
     Asserts: zero NaNs in the streamed output, bounded underruns, and the
     is_rendering silence guard (main.cpp:111, 128-132): blocks processed
     while a render is in flight are pure silence."""
-    import audiorenderingv2_tpu as ar
-    from audiorenderingv2_tpu import native, testing
-    from audiorenderingv2_tpu.renderer import AudioRenderer
-    from audiorenderingv2_tpu.streaming import AsyncRenderWorker, LiveConvolver
+    import audiorenderingv2 as ar
+    from audiorenderingv2 import native, testing
+    from audiorenderingv2.renderer import AudioRenderer
+    from audiorenderingv2.streaming import AsyncRenderWorker, LiveConvolver
 
     v, t = testing.box_room((10.0, 8.0, 9.0))
     scene = testing.scene_from_arrays(v, t, 0.3)
@@ -183,10 +183,10 @@ def test_live_duplex_rerender_under_stream(tmp_path):
 
 
 def test_auralizer_async_mode():
-    import audiorenderingv2_tpu as ar
-    from audiorenderingv2_tpu import testing
-    from audiorenderingv2_tpu.renderer import AudioRenderer
-    from audiorenderingv2_tpu.streaming import Auralizer
+    import audiorenderingv2 as ar
+    from audiorenderingv2 import testing
+    from audiorenderingv2.renderer import AudioRenderer
+    from audiorenderingv2.streaming import Auralizer
 
     v, t = testing.box_room((10.0, 8.0, 9.0))
     scene = testing.scene_from_arrays(v, t, 0.3)

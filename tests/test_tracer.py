@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import constants, testing
-from audiorenderingv2_tpu.core import sampling, tracer, tracer_ref
+import audiorenderingv2 as ar
+from audiorenderingv2 import constants, testing
+from audiorenderingv2.core import sampling, tracer, tracer_ref
 
 REF = "/root/reference"
 SR = 16000
@@ -172,9 +172,8 @@ class TestOracleParity:
         ir_ref, ir_jax = run_both(scene, dirs, np.zeros(3),
                                   np.array([2.0, 0.5, -1.0]), -45.0, params)
         assert ir_ref.sum() > 0
-        # exact vs the numpy oracle on CPU; statistical on chip, where XLA
-        # fusion drift at 12 bounces moved a lone deposit by ~0.7% (r4
-        # on-chip suite run)
+        # exact vs the numpy oracle on CPU; statistical on an accelerator,
+        # where XLA fusion drift at 12 bounces can move a lone deposit
         testing.assert_ir_close(ir_jax, ir_ref, rtol=2e-3, atol=1e-8)
 
     def test_scan_mode_matches_while_mode(self):
@@ -216,8 +215,7 @@ class TestOracleParity:
 
 class TestRngImpl:
     """rng_impl="rbg": the fast XLA RngBitGenerator direction stream
-    (TracerOptions.rng_impl / sampling.sample_directions; adopted by the
-    headline bench after the r3 sweep, docs/ROUND3.md section 4c). The
+    (TracerOptions.rng_impl / sampling.sample_directions). The
     reference's curand stream was clock64-seeded and irreproducible
     (devicePrograms.cu:216-224); both impls here are deterministic."""
 
@@ -250,3 +248,18 @@ class TestRngImpl:
             assert (ir != 0).sum() > 50
             sums[impl] = ir.sum()
         np.testing.assert_allclose(sums["rbg"], sums["threefry"], rtol=0.05)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "triton", "mosaic_gpu", ""])
+def test_unknown_backend_raises(backend):
+    """The XLA tracer is the only backend; any other name is refused when
+    the options are built, not silently traced with XLA."""
+    with pytest.raises(ValueError, match="only backend is 'xla'"):
+        ar.TracerOptions(backend=backend)
+
+
+def test_default_options_are_the_xla_tracer():
+    opts = ar.TracerOptions()
+    assert opts.backend == "xla"
+    assert not hasattr(opts, "rays_per_tile")
+    assert not [f for f in vars(opts) if f.startswith("pallas")]

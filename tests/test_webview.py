@@ -6,10 +6,10 @@ import re
 
 import numpy as np
 
-import audiorenderingv2_tpu as ar
-from audiorenderingv2_tpu import streaming, testing
-from audiorenderingv2_tpu.io import wav as wav_io
-from audiorenderingv2_tpu.utils.webview import write_walkthrough_html
+import audiorenderingv2 as ar
+from audiorenderingv2 import streaming, testing
+from audiorenderingv2.io import wav as wav_io
+from audiorenderingv2.utils.webview import write_walkthrough_html
 
 
 def _box_scene():
@@ -84,8 +84,8 @@ def test_yaw_convention_conversion_present():
     import tempfile
     from pathlib import Path
 
-    from audiorenderingv2_tpu import testing
-    from audiorenderingv2_tpu.utils.webview import write_walkthrough_html
+    from audiorenderingv2 import testing
+    from audiorenderingv2.utils.webview import write_walkthrough_html
 
     v, t = testing.box_room((4.0, 3.0, 5.0))
     scene = testing.scene_from_arrays(v, t, 0.3)
